@@ -1,18 +1,18 @@
-# Build/verify flow — the TPU analog of the reference's Makefile
+# Build/verify flow — the analog of the reference's Makefile
 # (/root/reference/Makefile:28-54: build_emu / report / build_hw / run_*).
 #
 #   make native   build the C host core (libnttcore.so)
 #   make test     run the suite on virtual CPU devices (the FPGA-emulator analog)
-#   make test_hw  run the suite on the real TPU chip
-#   make report   static per-kernel analysis: HLO dump + cost/roofline report
+#   make smoke    run chip_smoke.py: the main path on one GPU, checked
+#   make report   static per-transform analysis: HLO dump + traced op counts
 #                 (the analog of `make report` -> report.html)
-#   make bench    headline benchmark (one JSON line)
+#   make bench    headline benchmark on a GPU (one JSON line)
 
 CC      ?= gcc
 CFLAGS  ?= -O3 -shared -fPIC -Wall -Wextra
 BUILD   := build
 
-.PHONY: all native test test_hw report bench clean
+.PHONY: all native test smoke report bench clean
 
 all: native
 
@@ -22,23 +22,17 @@ $(BUILD)/libnttcore.so: csrc/nttcore.c
 	mkdir -p $(BUILD)
 	$(CC) $(CFLAGS) -o $@ $<
 
-# Persistent XLA compile cache (opt-in via agilex_ntt_tpu/__init__.py):
-# several round-2 kernels take minutes to compile cold through the remote
-# Mosaic toolchain (four-step full fuse at n=2^20, fused polymuls); caching
-# in-repo (.jax_cache/ is gitignored) makes repeat hardware runs fast.
-CACHE := NTT_TPU_COMPILE_CACHE=$(CURDIR)/.jax_cache
-
 test: native
-	python -m pytest tests/ -x -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -x -q
 
-test_hw: native
-	NTT_TPU_REAL_DEVICE=1 $(CACHE) python -m pytest tests/ -x -q
+smoke:
+	python chip_smoke.py
 
 report:
-	python -m agilex_ntt_tpu.utils.report
+	python -m agilex_ntt.utils.report
 
 bench:
-	$(CACHE) python bench.py
+	python bench.py
 
 clean:
 	rm -rf $(BUILD) report_out

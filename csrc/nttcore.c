@@ -1,7 +1,7 @@
 /* nttcore — native host-side NTT core (golden model + table generation).
  *
  * The reference is 100% native (DPC++/C++17, SURVEY.md §2); this library is
- * the TPU build's native runtime component: a third, independent
+ * this library's native runtime component: a third, independent
  * implementation of the Harvey lazy negacyclic NTT used to generate and
  * cross-check large SEAL-Embedded-style test-vector batteries at C speed,
  * plus prime search / primitive-root / twiddle-table generation.

@@ -18,15 +18,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if not os.environ.get("NTT_TPU_REAL_MESH"):
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except RuntimeError:
-        pass
 
 import numpy as np
 
-from agilex_ntt_tpu.schemes import BGVContext
+from agilex_ntt.schemes import BGVContext
 
 N = 256
 

@@ -31,7 +31,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import numpy as np
 
-from ckks_rns_toy import (  # noqa: E402  (forces CPU platform on import)
+from ckks_rns_toy import (  # noqa: E402
     DELTA, DNUM, N, T, decrypt, encrypt, keygen, negmul, rot_keys, rq, rqp,
     tau_host,
 )

@@ -33,16 +33,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if not os.environ.get("NTT_TPU_REAL_MESH"):
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except RuntimeError:
-        pass
 
 import numpy as np
 
-from agilex_ntt_tpu import RNSRing
-from agilex_ntt_tpu.params import find_primes
+from agilex_ntt import RNSRing
+from agilex_ntt.params import find_primes
 
 N, T = 1024, 64                    # ring degree, plaintext modulus
 QS = find_primes(N, 4)             # 3-prime ciphertext basis Q + special P

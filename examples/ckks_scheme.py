@@ -3,10 +3,10 @@
 
 Where ``ckks_rns_toy.py`` builds a scheme by hand from ring primitives (and
 checks every step against big-int oracles), this is the packaged product:
-``agilex_ntt_tpu.schemes.CKKSContext`` — encoder, keygen, encryption, and
+``agilex_ntt.schemes.CKKSContext`` — encoder, keygen, encryption, and
 the full evaluator (multiply/relinearize/rescale, rotations, fused BSGS
-linear transforms), every polynomial op dispatched through the fused
-multi-prime TPU kernels.  The reference stops at the forward transform
+linear transforms), every polynomial op dispatched through the
+channel-batched transform (the GPU kernel on a GPU).  The reference stops at the forward transform
 (``/root/reference/src/kernel/ntt.cpp``); this is the workload it feeds.
 
 Run: python examples/ckks_scheme.py
@@ -19,15 +19,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if not os.environ.get("NTT_TPU_REAL_MESH"):
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except RuntimeError:
-        pass
 
 import numpy as np
 
-from agilex_ntt_tpu.schemes import CKKSContext
+from agilex_ntt.schemes import CKKSContext
 
 N, SLOTS = 512, 256
 

@@ -26,29 +26,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if not os.environ.get("NTT_TPU_REAL_MESH"):
-    try:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", 8)
-    except RuntimeError:
-        pass
+# with JAX_PLATFORMS=cpu, emulate an 8-device mesh on the host
+jax.config.update("jax_num_cpu_devices", 8)
 
 import numpy as np
 import jax.numpy as jnp
 
-from agilex_ntt_tpu import RNSRing
-from agilex_ntt_tpu.params import find_primes
-from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+from agilex_ntt import RNSRing
+from agilex_ntt.params import find_primes
+from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
 
 def main():
-    on_tpu = jax.devices()[0].platform == "tpu"
     n, batch, k = 1024, 16, 3
     qs = find_primes(n, 4)           # ciphertext basis Q (3) + special p (1)
     q_basis, special = qs[:3], qs[3]
-    rq = RNSRing(n, qs=q_basis, backend="pallas", interpret=not on_tpu)
-    rqp = RNSRing(n, qs=q_basis + [special], backend="pallas",
-                  interpret=not on_tpu)
+    rq = RNSRing(n, qs=q_basis)
+    rqp = RNSRing(n, qs=q_basis + [special])
 
     rng = np.random.default_rng(0)
     ct = np.stack(

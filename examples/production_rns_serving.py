@@ -6,9 +6,9 @@ sharded over one mesh axis (channel parallelism — channels are fully
 independent, like experts) and the batch over another (data parallelism —
 the reference's frame round-robin, /root/reference/src/kernel/ntt.cpp:526-595).
 
-Runs anywhere: on a TPU pod slice the mesh spans real chips over ICI; on a
-dev box it demonstrates on virtual CPU devices (same code, same shardings —
-the FPGA-emulator analog).  Run: python examples/production_rns_serving.py
+Runs anywhere: on a host with several GPUs the mesh spans the cards; with
+JAX_PLATFORMS=cpu it runs on 8 virtual CPU devices (same code, same
+shardings — the FPGA-emulator analog).  Run: python examples/production_rns_serving.py
 """
 
 import os
@@ -18,31 +18,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-# Dev box: emulate an 8-device slice on CPU.  Must happen before any other
-# JAX call initializes the backend; on a real >= 8-chip slice, set
-# NTT_TPU_REAL_MESH=1 to use the actual devices instead.
-if not os.environ.get("NTT_TPU_REAL_MESH"):
-    try:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", 8)
-    except RuntimeError:
-        pass  # backends already initialized; use whatever exists
+# with JAX_PLATFORMS=cpu, emulate an 8-device mesh on the host
+jax.config.update("jax_num_cpu_devices", 8)
 
 import numpy as np
 import jax.numpy as jnp
 
-from agilex_ntt_tpu import RNSRing
-from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+from agilex_ntt import RNSRing
+from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
 
 def main():
-    on_tpu = jax.devices()[0].platform == "tpu"
     n, L, batch = 4096, 4, 64
 
-    # interpret=True runs the Pallas kernels in interpret mode on CPU (the
-    # emulator analog); on TPU the real kernels run
-    rns = RNSRing(n, num_primes=L, backend="pallas", interpret=not on_tpu)
-    oracle = RNSRing(n, num_primes=L, backend="xla")
+    # the transform runs the GPU kernel on a GPU, the plain XLA chains on
+    # the CPU; the oracle checks the sharded ops against one device
+    rns = RNSRing(n, num_primes=L)
+    oracle = RNSRing(n, num_primes=L)
 
     if len(jax.devices()) >= 8:
         mesh = make_mesh(ch=4, dp=2)

@@ -1,12 +1,12 @@
 """API-level tests: Ring / RNSRing, polymul vs schoolbook oracle, shapes,
-backend dispatch, XLA/Pallas agreement.
+transform dispatch, kernel/XLA agreement.
 """
 
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import Ring, RNSRing
-from agilex_ntt_tpu import golden as G
+from agilex_ntt import Ring, RNSRing
+from agilex_ntt import golden as G
 
 from conftest import params_for
 
@@ -118,14 +118,29 @@ def test_rns_roundtrip(rng):
     assert (z == x).all()
 
 
-def test_backend_dispatch():
-    # round 2: n < 128 keeps the pallas backend (lane-packed kernels)
-    r_small = Ring(32, backend="pallas")
-    assert r_small.backend == "pallas"
-    r = Ring(128, backend="xla")
-    assert r.backend == "xla"
-    with pytest.raises(ValueError):
-        Ring(128, backend="bogus")
+def test_backend_dispatch(monkeypatch):
+    # one transform per platform: the GPU kernel on a GPU (or in the
+    # interpreter when asked), the plain XLA chains elsewhere; Ring has no
+    # option that picks a backend
+    from agilex_ntt.ops import ntt_kernel
+
+    calls = []
+    monkeypatch.setattr(
+        ntt_kernel, "_call",
+        lambda x, *a, inverse, interpret: calls.append(interpret) or x,
+    )
+    x = np.zeros((1, 2, 128), np.uint32)
+    tabs = (np.zeros(1, np.uint32), np.zeros((1, 128), np.uint32),
+            np.zeros((1, 128), np.uint32))
+    ntt_kernel.ntt(x, *tabs)  # CPU: plain path, kernel not called
+    assert calls == []
+    ntt_kernel.ntt(x, *tabs, interpret=True)
+    assert calls == [True]
+    monkeypatch.setattr(ntt_kernel, "on_gpu", lambda: True)
+    ntt_kernel.intt(x, *tabs)
+    assert calls == [True, False]
+    with pytest.raises(TypeError):
+        Ring(128, backend="xla")
 
 
 @pytest.mark.parametrize("n", [32, 64])
@@ -133,7 +148,7 @@ def test_small_n_packed_pallas_interpret(n, rng):
     """n < 128 through the lane-packed Pallas kernels (interpret mode),
     bit-exact vs golden — reference parity for its smallest config
     (/root/reference/include/kernel/ntt.h:12)."""
-    ring = Ring(n, backend="pallas", interpret=True)
+    ring = Ring(n, interpret=True)
     x = _rand(rng, ring.q, (11, n))  # odd batch: exercises pack padding
     got = np.asarray(ring.ntt(x))
     assert (got == G.fwd_ntt_u32(x, ring.params)).all()
@@ -142,7 +157,7 @@ def test_small_n_packed_pallas_interpret(n, rng):
     a = _rand(rng, ring.q, (5, n))
     b = _rand(rng, ring.q, (5, n))
     got_pm = np.asarray(ring.polymul(a, b))
-    want_pm = np.asarray(Ring(n, backend="xla").polymul(a, b))
+    want_pm = np.asarray(Ring(n).polymul(a, b))
     assert (got_pm == want_pm).all()
 
 
@@ -164,28 +179,14 @@ def test_check_is_eager_only():
         jax.jit(lambda x: ring.check(x))(jnp.zeros((2, 128), jnp.uint32))
 
 
-def test_explicit_block_rows_warns_when_not_dividing():
-    # round-2 ADVICE fix: silent snapping is for the auto default only
-    import warnings
-
-    from agilex_ntt_tpu.ops.ntt_kernel import _pick_block_rows
-
-    with pytest.warns(UserWarning, match="does not divide"):
-        assert _pick_block_rows(64, 4096, 48) == 32
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # auto pick must stay silent
-        assert _pick_block_rows(64, 4096, None) > 0
-        assert _pick_block_rows(64, 4096, 32) == 32  # dividing: silent
-
-
 def test_rns_fused_paths_cast_signed_inputs(rng):
     """Code-review round 2: the fused RNS paths must apply the same
     truncating uint32 cast as the stacked path (int64 numpy input)."""
-    from agilex_ntt_tpu import RNSRing
+    from agilex_ntt import RNSRing
 
     n, L = 256, 2
-    fused = RNSRing(n, num_primes=L, backend="pallas", interpret=True)
-    oracle = RNSRing(n, num_primes=L, backend="xla")
+    fused = RNSRing(n, num_primes=L, interpret=True)
+    oracle = RNSRing(n, num_primes=L)
     x64 = np.stack([
         rng.integers(0, r.q, size=(4, n)).astype(np.int64)
         for r in fused.rings
@@ -198,9 +199,9 @@ def test_rns_fused_paths_cast_signed_inputs(rng):
 
 
 def test_rns_polydot_validates_shapes():
-    from agilex_ntt_tpu import RNSRing
+    from agilex_ntt import RNSRing
 
-    rns = RNSRing(256, num_primes=2, backend="pallas", interpret=True)
+    rns = RNSRing(256, num_primes=2, interpret=True)
     a = np.zeros((2, 2, 4, 256), np.uint32)
     b = np.zeros((2, 4, 2, 256), np.uint32)  # same element count, wrong shape
     with pytest.raises(ValueError, match="matching"):

@@ -1,9 +1,8 @@
 """Autotuner: candidate spaces, argmin selection, cache round-trip, and the
-Ring-level flat four-step dispatch it selects between.
+Ring(method="auto") dispatch that reads the cache.
 
-The timing pass itself is hardware-dependent (exercised on the real chip by
-tools/hw_round3.sh); here the timer is injected so selection and persistence
-logic are pinned deterministically.  Reference analog for the capability:
+The timing pass itself is hardware-dependent; here the timer is injected
+so selection and persistence logic are pinned deterministically.  Reference analog for the capability:
 one synthesized config per (FPGA_NTT_SIZE, modulus)
 (``/root/reference/include/kernel/ntt.h:11-23``) — here measured + cached
 per device kind.
@@ -15,32 +14,35 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from agilex_ntt_tpu import Ring
-from agilex_ntt_tpu.utils import autotune
+from agilex_ntt import Ring
+from agilex_ntt.utils import autotune
 
 
 def test_candidate_space_small_n_cpu():
-    cfgs = autotune.candidate_configs(4096, on_tpu=False)
-    assert {"method": "radix2", "backend": "xla"} in cfgs
-    assert all(c["backend"] == "xla" for c in cfgs)
+    assert autotune.candidate_configs(4096) == [{"method": "radix2"}]
+    both = autotune.candidate_configs(16384)
+    assert both == [{"method": "radix2"}, {"method": "fourstep"}]
 
 
-def test_candidate_space_tpu():
-    cfgs = autotune.candidate_configs(65536, on_tpu=True)
-    kinds = {(c["method"], c.get("fourstep_kernel")) for c in cfgs}
-    assert ("fourstep", "tiled") in kinds
-    assert ("fourstep", "flat") in kinds
-    # radix2 tops out at MAX_RADIX2_N
-    assert not any(c["method"] == "radix2" for c in cfgs)
-    small = autotune.candidate_configs(4096, on_tpu=True)
-    assert {"method": "radix2", "backend": "pallas"} in small
-    assert {"method": "radix2", "backend": "xla"} in small
+def test_candidate_space_gpu(monkeypatch):
+    # the space is the same on every device kind: one transform per
+    # platform, only the timings differ
+    monkeypatch.setattr(autotune, "device_key",
+                        lambda: "NVIDIA H100 80GB HBM3")
+    cfgs = autotune.candidate_configs(65536)
+    assert cfgs == [{"method": "fourstep"}]  # radix2 tops out at 32768
+    assert all(set(c) == {"method"} for c in autotune.candidate_configs(16384))
 
 
-def test_flat_kernel_beyond_bound_excluded():
-    cfgs = autotune.candidate_configs(1 << 20, on_tpu=True)
-    assert not any(c.get("fourstep_kernel") == "flat" for c in cfgs)
-    assert any(c.get("fourstep_kernel") == "tiled" for c in cfgs)
+def test_default_cache_path_inside_checkout(monkeypatch):
+    import os
+
+    monkeypatch.delenv("NTT_AUTOTUNE_CACHE", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert autotune.default_cache_path() == os.path.join(
+        root, ".autotune", "autotune.json")
+    monkeypatch.setenv("NTT_AUTOTUNE_CACHE", "/elsewhere/c.json")
+    assert autotune.default_cache_path() == "/elsewhere/c.json"
 
 
 def _fake_timer(times_by_cfg):
@@ -48,7 +50,7 @@ def _fake_timer(times_by_cfg):
 
     def timer(fn, x, iters):
         ring = fn.__closure__[0].cell_contents
-        key = (ring.method, ring.backend, ring.fourstep_kernel)
+        key = ring.method
         t = times_by_cfg[key]
         if t is None:
             raise RuntimeError("injected candidate failure")
@@ -59,26 +61,20 @@ def _fake_timer(times_by_cfg):
 
 @pytest.fixture
 def xla_candidate_space(monkeypatch):
-    """Pin the candidate space to the two XLA configs the injected-timer
-    tests enumerate.  On the real chip `candidate_configs` adds Pallas
-    candidates the fake timers don't key (caught by the round-5 on-chip
-    run: only radix2-xla survived and the argmin assertion flipped);
-    selection/persistence logic is device-independent, the space itself is
-    covered by the dedicated candidate-space tests above."""
+    """Pin the candidate space to the two methods the injected-timer tests
+    enumerate; the space itself is covered by the candidate-space tests
+    above."""
     monkeypatch.setattr(
         autotune, "candidate_configs",
-        lambda n, on_tpu=None: [
-            {"method": "radix2", "backend": "xla"},
-            {"method": "fourstep", "backend": "xla"},
-        ],
+        lambda n: [{"method": "radix2"}, {"method": "fourstep"}],
     )
 
 
 def test_tune_picks_argmin_and_caches(xla_candidate_space, tmp_path):
     path = str(tmp_path / "cache.json")
     times = {
-        ("radix2", "xla", None): 3.0,
-        ("fourstep", "xla", "tiled"): 1.0,
+        "radix2": 3.0,
+        "fourstep": 1.0,
     }
     r = autotune.tune(16384, 8, "ntt", timer=_fake_timer(times),
                       cache_path=path)
@@ -94,7 +90,7 @@ def test_tune_picks_argmin_and_caches(xla_candidate_space, tmp_path):
     r2 = autotune.tune(16384, 8, "ntt", timer=boom, cache_path=path)
     assert not r2["tuned"] and r2["config"] == r["config"]
     # refresh re-times
-    times[("radix2", "xla", None)] = 0.5
+    times["radix2"] = 0.5
     r3 = autotune.tune(16384, 8, "ntt", timer=_fake_timer(times),
                        cache_path=path, refresh=True)
     assert r3["tuned"] and r3["config"]["method"] == "radix2"
@@ -102,8 +98,8 @@ def test_tune_picks_argmin_and_caches(xla_candidate_space, tmp_path):
 
 def test_tune_skips_failing_candidate(xla_candidate_space, tmp_path):
     times = {
-        ("radix2", "xla", None): None,        # fails to run
-        ("fourstep", "xla", "tiled"): 2.0,
+        "radix2": None,        # fails to run
+        "fourstep": 2.0,
     }
     r = autotune.tune(16384, 8, "intt", timer=_fake_timer(times),
                       cache_path=str(tmp_path / "c.json"))
@@ -114,8 +110,8 @@ def test_tune_skips_failing_candidate(xla_candidate_space, tmp_path):
 
 def test_tune_all_candidates_fail(xla_candidate_space, tmp_path):
     times = {
-        ("radix2", "xla", None): None,
-        ("fourstep", "xla", "tiled"): None,
+        "radix2": None,
+        "fourstep": None,
     }
     with pytest.raises(RuntimeError, match="no candidate"):
         autotune.tune(16384, 8, "ntt", timer=_fake_timer(times),
@@ -124,129 +120,16 @@ def test_tune_all_candidates_fail(xla_candidate_space, tmp_path):
 
 def test_tuned_ring_computes_correctly(xla_candidate_space, tmp_path, rng):
     times = {
-        ("radix2", "xla", None): 1.0,
-        ("fourstep", "xla", "tiled"): 9.0,
+        "radix2": 1.0,
+        "fourstep": 9.0,
     }
     ring = autotune.tuned_ring(16384, 4, "ntt", timer=_fake_timer(times),
                                cache_path=str(tmp_path / "c.json"))
     assert ring.method == "radix2"
     x = rng.integers(0, ring.q, size=(4, 16384), dtype=np.uint32)
-    want = Ring(16384, ring.q, backend="xla", method="fourstep").ntt(x)
+    want = Ring(16384, ring.q, method="fourstep").ntt(x)
     assert (np.asarray(ring.ntt(jnp.asarray(x)))
             == np.asarray(want)).all()
-
-
-# -- scheme-op tuning (VERDICT round-4 item 8) -------------------------------
-
-
-def _fake_scheme_timer(times_by_cfg):
-    """timer(fn, x, iters) keyed on the RNSRing config the op captured."""
-
-    def timer(fn, x, iters):
-        from agilex_ntt_tpu.api import RNSRing
-
-        rq = next(
-            c.cell_contents for c in fn.__closure__
-            if isinstance(c.cell_contents, RNSRing)
-        )
-        r0 = rq.rings[0]
-        t = times_by_cfg[(r0.backend, r0.block_rows)]
-        if t is None:
-            raise RuntimeError("injected candidate failure")
-        return t
-
-    return timer
-
-
-def test_tune_scheme_candidates():
-    cpu = autotune._scheme_candidates(4096, on_tpu=False)
-    assert cpu == [{"method": "radix2", "backend": "xla"}]
-    tpu = autotune._scheme_candidates(4096, on_tpu=True)
-    brs = {c.get("block_rows") for c in tpu if c["backend"] == "pallas"}
-    assert brs == {None, 64, 128, 256}
-
-
-@pytest.mark.parametrize("op", autotune._SCHEME_OPS)
-def test_tune_scheme_picks_argmin_and_caches(tmp_path, op):
-    path = str(tmp_path / "cache.json")
-    times = {
-        ("xla", None): 5.0,
-        ("pallas", None): 3.0,
-        ("pallas", 64): 1.0,
-        ("pallas", 128): 2.0,
-        ("pallas", 256): 4.0,
-    }
-    r = autotune.tune_scheme(
-        op, 1024, 4, L=2, dnum=2, timer=_fake_scheme_timer(times),
-        cache_path=path, on_tpu=True,
-    )
-    assert r["tuned"]
-    assert r["config"] == {"method": "radix2", "backend": "pallas",
-                           "block_rows": 64}
-    # persisted under an L/dnum-carrying key, not the single-op namespace
-    with open(path) as f:
-        cache = json.load(f)
-    keys = list(cache[autotune.device_key()].keys())
-    assert keys == [f"{op}|n=1024|b=4|L=2|dnum=2"]
-
-    # second call: cache hit, no timing (a raising timer proves it)
-    def boom(*a):
-        raise AssertionError("timer ran on a cache hit")
-
-    r2 = autotune.tune_scheme(op, 1024, 4, L=2, dnum=2, timer=boom,
-                              cache_path=path, on_tpu=True)
-    assert not r2["tuned"] and r2["config"] == r["config"]
-
-
-def test_tune_scheme_skips_failing_candidate(tmp_path):
-    times = {
-        ("xla", None): 2.0,
-        ("pallas", None): None,
-        ("pallas", 64): None,
-        ("pallas", 128): None,
-        ("pallas", 256): None,
-    }
-    r = autotune.tune_scheme(
-        "tensor", 1024, 4, L=2, timer=_fake_scheme_timer(times),
-        cache_path=str(tmp_path / "c.json"), on_tpu=True,
-    )
-    assert r["config"]["backend"] == "xla"
-    assert sum(c["seconds"] is None for c in r["candidates"]) == 4
-
-
-# -- Ring fourstep_kernel="flat" dispatch -----------------------------------
-
-
-def test_flat_option_validation():
-    with pytest.raises(ValueError, match="method='fourstep'"):
-        Ring(4096, method="radix2", fourstep_kernel="flat")
-    with pytest.raises(ValueError, match="Pallas"):
-        Ring(16384, method="fourstep", backend="xla",
-             fourstep_kernel="flat")
-    with pytest.raises(ValueError, match="n <="):
-        Ring(1 << 20, method="fourstep", backend="pallas",
-             fourstep_kernel="flat")
-    with pytest.raises(ValueError, match="unknown fourstep_kernel"):
-        Ring(16384, method="fourstep", fourstep_kernel="bogus")
-    assert "flat" in repr(
-        Ring(16384, method="fourstep", backend="pallas",
-             fourstep_kernel="flat", interpret=True)
-    )
-
-
-def test_ring_flat_bit_exact(rng):
-    n = 1024
-    flat = Ring(n, method="fourstep", backend="pallas",
-                fourstep_kernel="flat", interpret=True)
-    ref = Ring(n, flat.q, method="fourstep", backend="xla")
-    x = rng.integers(0, flat.q, size=(3, n), dtype=np.uint32)
-    y = rng.integers(0, flat.q, size=(3, n), dtype=np.uint32)
-    fx = np.asarray(flat.ntt(jnp.asarray(x)))
-    assert (fx == np.asarray(ref.ntt(x))).all()
-    assert (np.asarray(flat.intt(jnp.asarray(fx)))
-            == np.asarray(ref.intt(fx))).all()
-    assert (np.asarray(flat.polymul(jnp.asarray(x), jnp.asarray(y)))
-            == np.asarray(ref.polymul(x, y))).all()
 
 
 # -- Ring(method="auto"): persisted-cache-consulting dispatch ----------------
@@ -266,9 +149,8 @@ def test_cached_config_prefers_largest_batch(tmp_path):
     path = str(tmp_path / "cache.json")
     q = Ring(16384).q
     _write_cache(path, 16384, q, [
-        ("ntt", 8, {"method": "radix2", "backend": "xla"}),
-        ("ntt", 512, {"method": "fourstep", "backend": "xla",
-                      "fourstep_kernel": "tiled"}),
+        ("ntt", 8, {"method": "radix2"}),
+        ("ntt", 512, {"method": "fourstep"}),
     ])
     cfg = autotune.cached_config(16384, q, cache_path=path)
     assert cfg["method"] == "fourstep"          # batch 512 wins over 8
@@ -283,21 +165,18 @@ def test_ring_method_auto_cache_hit(tmp_path, monkeypatch):
     path = str(tmp_path / "cache.json")
     q = Ring(16384).q
     _write_cache(path, 16384, q, [
-        ("ntt", 256, {"method": "fourstep", "backend": "xla",
-                      "fourstep_kernel": "tiled", "block_rows": 64}),
+        # keys of older cache versions are ignored
+        ("ntt", 256, {"method": "fourstep", "block_rows": 64}),
     ])
-    monkeypatch.setenv("NTT_TPU_AUTOTUNE_CACHE", path)
+    monkeypatch.setenv("NTT_AUTOTUNE_CACHE", path)
     ring = Ring(16384, method="auto")
     assert ring.method == "fourstep"
-    assert ring.backend == "xla"
-    assert ring.block_rows == 64
-    # explicit arguments still beat the cached entry
-    ring2 = Ring(16384, method="auto", backend="xla", block_rows=32)
-    assert ring2.block_rows == 32
+    assert autotune.cached_config(16384, q, cache_path=path) == {
+        "method": "fourstep"}
 
 
 def test_ring_method_auto_miss_falls_back(tmp_path, monkeypatch):
-    monkeypatch.setenv("NTT_TPU_AUTOTUNE_CACHE",
+    monkeypatch.setenv("NTT_AUTOTUNE_CACHE",
                        str(tmp_path / "empty.json"))
     ring = Ring(4096, method="auto")
     assert ring.method == "radix2"              # static default preserved
@@ -309,11 +188,11 @@ def test_ring_method_auto_computes_correctly(tmp_path, monkeypatch, rng):
     path = str(tmp_path / "cache.json")
     q = Ring(4096).q
     _write_cache(path, 4096, q, [
-        ("ntt", 64, {"method": "fourstep", "backend": "xla"}),
+        ("ntt", 64, {"method": "fourstep"}),
     ])
-    monkeypatch.setenv("NTT_TPU_AUTOTUNE_CACHE", path)
+    monkeypatch.setenv("NTT_AUTOTUNE_CACHE", path)
     ring = Ring(4096, method="auto")
     assert ring.method == "fourstep"
     x = rng.integers(0, ring.q, size=(4, 4096), dtype=np.uint32)
-    want = Ring(4096, ring.q, method="radix2", backend="xla").ntt(x)
+    want = Ring(4096, ring.q, method="radix2").ntt(x)
     assert (np.asarray(ring.ntt(jnp.asarray(x))) == np.asarray(want)).all()

@@ -10,8 +10,8 @@ import pytest
 
 from conftest import require_devices
 
-from agilex_ntt_tpu import RNSRing
-from agilex_ntt_tpu.params import find_primes
+from agilex_ntt import RNSRing
+from agilex_ntt.params import find_primes
 
 
 def _random_bigints(rng, modulus, shape):
@@ -118,7 +118,7 @@ def test_sharded_base_convert_and_rescale_match_single_chip(rings):
     ops; under ch sharding the crossings are XLA-inserted gathers — see
     ShardedRNSRing._mixing_op)."""
     import jax.numpy as jnp
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     src, dst = rings
     require_devices(2)
@@ -151,7 +151,7 @@ def bfv_bases():
 
 
 def test_scale_round_matches_bigint_rounding(bfv_bases):
-    from agilex_ntt_tpu.ops.basechange import scale_round
+    from agilex_ntt.ops.basechange import scale_round
 
     n, qs, bs, m_sk = bfv_bases
     t = find_primes(n, 1, bits=16)[0]
@@ -179,7 +179,7 @@ def test_scale_round_matches_bigint_rounding(bfv_bases):
 
 
 def test_base_convert_sk_is_exact(bfv_bases):
-    from agilex_ntt_tpu.ops.basechange import base_convert_sk
+    from agilex_ntt.ops.basechange import base_convert_sk
 
     n, qs, bs, m_sk = bfv_bases
     B = int(np.prod([int(b) for b in bs], dtype=object))

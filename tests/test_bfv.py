@@ -10,7 +10,7 @@ scale-invariant modulus switching (no tracked correction factor).
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu.schemes.bfv import BFVContext
+from agilex_ntt.schemes.bfv import BFVContext
 
 N = 256
 SLOTS = N // 2

@@ -15,8 +15,8 @@ import pytest
 
 from conftest import require_devices
 
-from agilex_ntt_tpu.parallel import make_mesh
-from agilex_ntt_tpu.schemes.bfv import BFVContext
+from agilex_ntt.parallel import make_mesh
+from agilex_ntt.schemes.bfv import BFVContext
 
 N = 256
 SLOTS = N // 2

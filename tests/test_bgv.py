@@ -10,7 +10,7 @@ import pytest
 
 from conftest import require_devices
 
-from agilex_ntt_tpu.schemes.bgv import BGVContext
+from agilex_ntt.schemes.bgv import BGVContext
 
 N = 256
 SLOTS = N // 2
@@ -137,7 +137,7 @@ def test_batched_pipeline(ctx, keys, rng):
 def test_mesh_sharded_matches_single_chip(ctx, keys, rng):
     # every evaluator op through ShardedRNSRing with the t-correcting
     # ModDown: byte-equal to the single-chip path, still exact
-    from agilex_ntt_tpu.parallel import make_mesh
+    from agilex_ntt.parallel import make_mesh
 
     require_devices(4)
     mctx = BGVContext(N, num_primes=3, mesh=make_mesh(dp=4))

@@ -10,8 +10,8 @@ each against the corresponding exact slotwise computation.
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu.schemes import CKKSContext
-from agilex_ntt_tpu.schemes.ckks import decode_coeffs, encode_coeffs
+from agilex_ntt.schemes import CKKSContext
+from agilex_ntt.schemes.ckks import decode_coeffs, encode_coeffs
 
 N = 256
 SLOTS = N // 2

@@ -13,8 +13,8 @@ import pytest
 
 from conftest import require_devices
 
-from agilex_ntt_tpu.parallel import make_mesh
-from agilex_ntt_tpu.schemes import CKKSContext
+from agilex_ntt.parallel import make_mesh
+from agilex_ntt.schemes import CKKSContext
 
 N = 256
 SLOTS = N // 2

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from agilex_ntt_tpu.__main__ import main as cli_main
-from agilex_ntt_tpu import Ring
-from agilex_ntt_tpu.utils.profiling import device_time, dump_hlo
+from agilex_ntt.__main__ import main as cli_main
+from agilex_ntt import Ring
+from agilex_ntt.utils.profiling import device_time, dump_hlo
 
 
 def test_cli_smoke(capsys):
@@ -17,7 +17,7 @@ def test_cli_smoke(capsys):
 
 
 def test_dump_hlo_and_device_time():
-    r = Ring(128, backend="xla")
+    r = Ring(128)
     x = jnp.zeros((8, 128), dtype=jnp.uint32)
     hlo = dump_hlo(r.ntt, x)
     assert "HloModule" in hlo or len(hlo) > 500

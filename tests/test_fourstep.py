@@ -12,15 +12,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from agilex_ntt_tpu import Ring, golden as G
-from agilex_ntt_tpu.params import (
+from agilex_ntt import Ring, golden as G
+from agilex_ntt.params import (
     find_primes,
     fourstep_split,
     make_cyclic_params,
     make_params,
 )
-from agilex_ntt_tpu.ops import xla_ntt
-from agilex_ntt_tpu.ops.fourstep import (
+from agilex_ntt.ops import xla_ntt
+from agilex_ntt.ops.fourstep import (
     fwd_ntt_fourstep,
     inv_ntt_fourstep,
     make_plan,
@@ -33,7 +33,7 @@ def _naive_cyclic_dft(x, q, omega):
     """O(n^2) big-int cyclic DFT, output in bit-reversed order."""
     n = len(x)
     logn = n.bit_length() - 1
-    from agilex_ntt_tpu.params import bit_reverse
+    from agilex_ntt.params import bit_reverse
 
     out = [0] * n
     nz = [j for j in range(n) if x[j]]
@@ -76,7 +76,7 @@ def test_fourstep_fwd_bit_exact_vs_golden(rng, n):
     params = params_for(n)
     plan = make_plan(n, params.q, params.psi)
     x = rng.integers(0, params.q, size=(5, n), dtype=np.uint32)
-    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan, backend="xla"))
+    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan))
     want = G.fwd_ntt_u64(x, params).astype(np.uint32)
     assert (got == want).all()
 
@@ -86,7 +86,7 @@ def test_fourstep_inv_bit_exact_vs_golden(rng, n):
     params = params_for(n)
     plan = make_plan(n, params.q, params.psi)
     y = rng.integers(0, params.q, size=(3, n), dtype=np.uint32)
-    got = np.asarray(inv_ntt_fourstep(jnp.asarray(y), plan, backend="xla"))
+    got = np.asarray(inv_ntt_fourstep(jnp.asarray(y), plan))
     want = G.inv_ntt_u64(y, params).astype(np.uint32)
     assert (got == want).all()
 
@@ -97,7 +97,7 @@ def test_fourstep_lazy_input_range(rng):
     params = params_for(n)
     plan = make_plan(n, params.q, params.psi)
     x = rng.integers(0, 4 * params.q, size=(2, n), dtype=np.uint32)
-    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan, backend="xla"))
+    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan))
     want = G.fwd_ntt_u64(x, params).astype(np.uint32)
     assert (got == want).all()
 
@@ -109,7 +109,7 @@ def test_fourstep_unbalanced_split(rng):
     params = params_for(n)
     plan = make_plan(n, params.q, params.psi)
     x = rng.integers(0, params.q, size=(2, n), dtype=np.uint32)
-    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan, backend="xla"))
+    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan))
     want = G.fwd_ntt_u64(x, params).astype(np.uint32)
     assert (got == want).all()
 
@@ -121,57 +121,47 @@ def test_fourstep_large_n_vs_golden(rng):
     params = make_params(n, q)
     plan = make_plan(n, q, params.psi)
     x = rng.integers(0, q, size=(2, n), dtype=np.uint32)
-    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan, backend="xla"))
+    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan))
     want = G.fwd_ntt_u64(x, params).astype(np.uint32)
     assert (got == want).all()
-    back = np.asarray(inv_ntt_fourstep(jnp.asarray(got), plan, backend="xla"))
+    back = np.asarray(inv_ntt_fourstep(jnp.asarray(got), plan))
     assert (back == x).all()
 
 
 def test_fused_col_pass_interpret_bit_exact(rng):
-    """The TPU fast path (on-chip transposes + fused scale) in interpret
-    mode, bit-compared to the golden model — the FPGA-emulator analog."""
-    n = 65536  # n1 = n2 = 256 >= MIN_KERNEL_N so the fused path activates
+    """Both passes through the GPU kernel in the Pallas interpreter,
+    bit-compared to the golden model."""
+    n = 65536
     params = params_for(n)
     plan = make_plan(n, params.q, params.psi)
     x = rng.integers(0, params.q, size=(2, n), dtype=np.uint32)
     got = np.asarray(
-        fwd_ntt_fourstep(jnp.asarray(x), plan, backend="pallas", interpret=True)
+        fwd_ntt_fourstep(jnp.asarray(x), plan, interpret=True)
     )
     want = G.fwd_ntt_u64(x, params).astype(np.uint32)
     assert (got == want).all()
     back = np.asarray(
-        inv_ntt_fourstep(jnp.asarray(got), plan, backend="pallas", interpret=True)
+        inv_ntt_fourstep(jnp.asarray(got), plan, interpret=True)
     )
     assert (back == x).all()
 
 
-def test_col_pass_two_kernel_path_bit_exact(rng, monkeypatch):
-    """The two-kernel fused column path (_col_pass_fwd/_col_pass_inv) only
-    activates above the full-fuse matrix cap; force it at a testable size so
-    its ~130 lines of kernel code stay inside the bit-exact suite."""
-    import agilex_ntt_tpu.ops.fourstep as fs
-
-    monkeypatch.setattr(fs, "_FULL_FUSE_BYTES", 0)
-    n = 65536
-    # second prime: a distinct plan object, so the jit cache (keyed on the
-    # plan) cannot serve the full-fuse trace compiled by the sibling test
+@pytest.mark.parametrize("n1", [32, 512])
+def test_nonsquare_split_interpret_bit_exact(n1, rng):
+    """Explicit n1 != n2 splits through the kernel passes (interpreter)."""
+    n = 1 << 14
     params = params_for(n, 1)
-    plan = make_plan(n, params.q, params.psi)
+    plan = make_plan(n, params.q, params.psi, n1=n1)
     x = rng.integers(0, params.q, size=(2, n), dtype=np.uint32)
-    got = np.asarray(
-        fwd_ntt_fourstep(jnp.asarray(x), plan, backend="pallas", interpret=True)
-    )
-    want = G.fwd_ntt_u64(x, params).astype(np.uint32)
-    assert (got == want).all()
-    back = np.asarray(
-        inv_ntt_fourstep(jnp.asarray(got), plan, backend="pallas", interpret=True)
-    )
+    got = np.asarray(fwd_ntt_fourstep(jnp.asarray(x), plan, interpret=True))
+    assert (got == G.fwd_ntt_u64(x, params).astype(np.uint32)).all()
+    back = np.asarray(inv_ntt_fourstep(jnp.asarray(got), plan,
+                                       interpret=True))
     assert (back == x).all()
 
 
 def test_plan_rejects_oversized_and_composite_q():
-    from agilex_ntt_tpu.ops.fourstep import make_cyclic_plan
+    from agilex_ntt.ops.fourstep import make_cyclic_plan
 
     with pytest.raises(ValueError, match="2\\*\\*30"):
         make_plan(256, q=2147483137)
@@ -190,7 +180,7 @@ def test_ring_auto_selects_fourstep(rng):
 def test_ring_fourstep_polymul_matches_naive(rng):
     """Negacyclic product through the four-step path (Montgomery fold incl.)."""
     n = 512
-    r = Ring(n, method="fourstep", backend="xla")
+    r = Ring(n, method="fourstep")
     a = rng.integers(0, r.q, size=(n,), dtype=np.uint32)
     b = np.zeros(n, dtype=np.uint32)
     b[0], b[1], b[7] = 3, 1, rng.integers(1, r.q)
@@ -209,8 +199,8 @@ def test_ring_fourstep_polymul_matches_naive(rng):
 
 def test_ring_fourstep_matches_radix2(rng):
     n = 4096
-    r2 = Ring(n, method="radix2", backend="xla")
-    r4 = Ring(n, method="fourstep", backend="xla")
+    r2 = Ring(n, method="radix2")
+    r4 = Ring(n, method="fourstep")
     assert r2.q == r4.q
     x = rng.integers(0, r2.q, size=(3, n), dtype=np.uint32)
     assert (np.asarray(r2.ntt(x)) == np.asarray(r4.ntt(x))).all()
@@ -219,12 +209,9 @@ def test_ring_fourstep_matches_radix2(rng):
 
 
 def test_fused_polymul_fourstep_interpret_bit_exact(rng):
-    """Round-2 single-kernel four-step polymul (VERDICT item 5) vs the
-    composed transform chain, in interpret mode (the emulator analog)."""
-    import jax.numpy as jnp
-
-    from agilex_ntt_tpu.ops.fourstep import polymul_fourstep_fused
-    from agilex_ntt_tpu.ops.modmul import mont_qinv_neg
+    """Four-step polymul with kernel passes (interpreter) vs the composed
+    plain chain: fwd x2, Montgomery pointwise, scaled inverse."""
+    from agilex_ntt.ops.modmul import mont_mul_lazy, mont_qinv_neg
 
     n = 1 << 16
     q = find_primes(n, 1)[0]
@@ -232,20 +219,11 @@ def test_fused_polymul_fourstep_interpret_bit_exact(rng):
     scale = pow(n, q - 2, q) * ((1 << 32) % q) % q
     a = rng.integers(0, q, size=(2, n), dtype=np.uint32)
     b = rng.integers(0, q, size=(2, n), dtype=np.uint32)
-    got = np.asarray(
-        polymul_fourstep_fused(
-            jnp.asarray(a), jnp.asarray(b), plan,
-            scale=scale, qinv_neg=mont_qinv_neg(q), interpret=True,
-        )
-    )
-    # composed oracle: fwd x2 (xla), montgomery pointwise, scaled inverse
-    from agilex_ntt_tpu.ops.fourstep import fwd_ntt_fourstep, inv_ntt_fourstep
-    from agilex_ntt_tpu.ops.modmul import mont_mul_lazy
-
-    fa = fwd_ntt_fourstep(jnp.asarray(a), plan, backend="xla")
-    fb = fwd_ntt_fourstep(jnp.asarray(b), plan, backend="xla")
+    got = np.asarray(Ring(n, q, interpret=True).polymul(a, b))
+    fa = fwd_ntt_fourstep(jnp.asarray(a), plan)
+    fb = fwd_ntt_fourstep(jnp.asarray(b), plan)
     prod = mont_mul_lazy(fa, fb, q, mont_qinv_neg(q))
     want = np.asarray(
-        inv_ntt_fourstep(prod, plan, scale=scale, backend="xla")
+        inv_ntt_fourstep(prod, plan, scale=scale)
     )
     assert (got == want).all()

@@ -10,10 +10,10 @@ import jax
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import Ring
-from agilex_ntt_tpu import golden as G
-from agilex_ntt_tpu.ops.fourstep import make_plan
-from agilex_ntt_tpu.parallel import (
+from agilex_ntt import Ring
+from agilex_ntt import golden as G
+from agilex_ntt.ops.fourstep import make_plan
+from agilex_ntt.parallel import (
     ShardedRing,
     fourstep_sharded_fwd,
     fourstep_sharded_inv,
@@ -38,7 +38,7 @@ def test_fourstep_sharded_fwd_matches_golden(devices8, rng, sp):
     mesh = make_mesh(sp=sp)
     x = rng.integers(0, params.q, size=(4, n), dtype=np.uint32)
     got = np.asarray(
-        fourstep_sharded_fwd(x, plan, mesh, axis="sp", backend="xla")
+        fourstep_sharded_fwd(x, plan, mesh, axis="sp")
     )
     want = G.fwd_ntt_u64(x, params).astype(np.uint32)
     assert (got == want).all()
@@ -51,7 +51,7 @@ def test_fourstep_sharded_inv_matches_golden(devices8, rng):
     mesh = make_mesh(sp=4)
     y = rng.integers(0, params.q, size=(3, n), dtype=np.uint32)
     got = np.asarray(
-        fourstep_sharded_inv(y, plan, mesh, axis="sp", backend="xla")
+        fourstep_sharded_inv(y, plan, mesh, axis="sp")
     )
     want = G.inv_ntt_u64(y, params).astype(np.uint32)
     assert (got == want).all()
@@ -64,9 +64,9 @@ def test_fourstep_sharded_roundtrip_dp_sp(devices8, rng):
     plan = make_plan(n, params.q, params.psi)
     mesh = make_mesh(dp=2, sp=4)
     x = rng.integers(0, params.q, size=(4, n), dtype=np.uint32)
-    y = fourstep_sharded_fwd(x, plan, mesh, axis="sp", dp_axis="dp", backend="xla")
+    y = fourstep_sharded_fwd(x, plan, mesh, axis="sp", dp_axis="dp")
     back = np.asarray(
-        fourstep_sharded_inv(y, plan, mesh, axis="sp", dp_axis="dp", backend="xla")
+        fourstep_sharded_inv(y, plan, mesh, axis="sp", dp_axis="dp")
     )
     assert (back == x).all()
 
@@ -74,7 +74,7 @@ def test_fourstep_sharded_roundtrip_dp_sp(devices8, rng):
 def test_sharded_ring_fourstep_polymul(devices8, rng):
     """ShardedRing with sp_method='fourstep': full polymul vs golden."""
     n = 1024
-    ring = Ring(n, backend="xla", method="fourstep")
+    ring = Ring(n, method="fourstep")
     mesh = make_mesh(dp=2, sp=4)
     sr = ShardedRing(ring, mesh, dp_axis="dp", sp_axis="sp")
     assert sr.sp_method == "fourstep"
@@ -90,12 +90,25 @@ def test_sharded_ring_fourstep_polymul(devices8, rng):
     assert (got == want).all()
 
 
-def test_sharded_ring_sp_method_validation(devices8):
-    ring4 = Ring(1024, backend="xla", method="fourstep")
+def test_sharded_ring_sp_method_validation(devices8, rng):
+    from agilex_ntt import CyclicRing
+
     mesh = make_mesh(sp=2)
+    # a negacyclic four-step ring has single-pass tables too: the stage
+    # method runs on it, bit-identical to the ring
+    ring4 = Ring(1024, method="fourstep")
+    sr = ShardedRing(ring4, mesh, dp_axis=None, sp_axis="sp",
+                     sp_method="stage")
+    x = rng.integers(0, ring4.q, size=(2, 1024), dtype=np.uint32)
+    assert (np.asarray(sr.ntt(x)) == np.asarray(ring4.ntt(x))).all()
+    # a four-step cyclic ring has none; overlap needs the four-step method
     with pytest.raises(ValueError):
-        ShardedRing(ring4, mesh, dp_axis=None, sp_axis="sp", sp_method="stage")
-    ring2 = Ring(1024, backend="xla")
+        ShardedRing(CyclicRing(1 << 16), mesh, dp_axis=None, sp_axis="sp",
+                    sp_method="stage")
+    with pytest.raises(ValueError, match="overlap"):
+        ShardedRing(Ring(1024), mesh, dp_axis=None, sp_axis="sp",
+                    sp_method="stage", sp_comm="overlap")
+    ring2 = Ring(1024)
     sr = ShardedRing(ring2, mesh, dp_axis=None, sp_axis="sp", sp_method="fourstep")
     assert sr._plan is not None
 
@@ -107,17 +120,17 @@ def test_fourstep_sharded_rejects_bad_split(devices8):
     mesh = make_mesh(sp=8)
     x = np.zeros((2, n), dtype=np.uint32)
     with pytest.raises(ValueError):
-        fourstep_sharded_fwd(x, plan, mesh, axis="sp", backend="xla")
+        fourstep_sharded_fwd(x, plan, mesh, axis="sp")
 
 
 def test_sharded_rns_ring(devices8, rng):
     """ShardedRNSRing: L channels, dp x sp mesh, one dispatch per op,
     bit-identical to per-channel single-chip golden."""
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing
 
     n = 1024
-    rns = RNSRing(n, num_primes=2, backend="xla")
+    rns = RNSRing(n, num_primes=2)
     mesh = make_mesh(dp=2, sp=4)
     srns = ShardedRNSRing(rns, mesh, dp_axis="dp", sp_axis="sp",
                           sp_method="fourstep")

@@ -9,10 +9,10 @@ import pytest
 
 from conftest import require_devices
 
-from agilex_ntt_tpu import Ring, RNSRing
-from agilex_ntt_tpu.ops import gadget
-from agilex_ntt_tpu.params import find_primes
-from agilex_ntt_tpu.utils.crt import crt_compose
+from agilex_ntt import Ring, RNSRing
+from agilex_ntt.ops import gadget
+from agilex_ntt.params import find_primes
+from agilex_ntt.utils.crt import crt_compose
 
 
 def _random_bigints(rng, modulus, shape):
@@ -150,7 +150,7 @@ def test_digit_decompose_edge_values():
 
 
 def test_sharded_gadget_decompose_matches_single_chip(ring6):
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     import jax.numpy as jnp
 

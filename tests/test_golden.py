@@ -1,5 +1,5 @@
 """Golden-model tests: the u64 model (mirror of the reference arithmetic),
-the u32 model (what TPU kernels compute), and the independent big-int oracle
+the u32 model (what the device transforms compute), and the independent big-int oracle
 must all agree; roundtrip and convolution properties must hold.
 
 This is the test pyramid level the reference aspires to but lacks
@@ -9,8 +9,8 @@ This is the test pyramid level the reference aspires to but lacks
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import golden as G
-from agilex_ntt_tpu.params import make_params
+from agilex_ntt import golden as G
+from agilex_ntt.params import make_params
 
 from conftest import params_for
 

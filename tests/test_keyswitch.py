@@ -7,10 +7,10 @@ from conftest import require_devices
 
 import jax.numpy as jnp
 
-from agilex_ntt_tpu import RNSRing
-from agilex_ntt_tpu.golden import negacyclic_convolution
-from agilex_ntt_tpu.params import find_primes
-from agilex_ntt_tpu.utils.crt import crt_compose
+from agilex_ntt import RNSRing
+from agilex_ntt.golden import negacyclic_convolution
+from agilex_ntt.params import find_primes
+from agilex_ntt.utils.crt import crt_compose
 
 
 def _random_bigints(rng, modulus, shape):
@@ -166,7 +166,7 @@ def test_keyswitch_validates(ext_pair):
 
 
 def test_sharded_keyswitch_and_mod_down_match_single_chip(ext_pair):
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     rq, ext = ext_pair
     dnum, batch = 2, 4
@@ -275,7 +275,7 @@ def test_hoisted_keyswitch_validates(ext_pair):
 
 
 def test_sharded_hoisted_keyswitch_matches_single_chip(ext_pair):
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     rq, ext = ext_pair
     dnum, batch = 2, 4
@@ -472,7 +472,7 @@ def test_hoisted_linear_sum_validates(ext_pair):
 
 
 def test_sharded_hoisted_linear_sum_matches_single_chip(ext_pair):
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     rq, ext = ext_pair
     dnum, batch = 2, 4

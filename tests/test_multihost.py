@@ -1,5 +1,4 @@
-"""Tests for parallel/multihost.py (round-2: VERDICT round-1 item 4 — these
-helpers previously had zero coverage) and for uneven-batch (remainder-frame)
+"""Tests for parallel/multihost.py and for uneven-batch (remainder-frame)
 handling in ShardedRing.
 
 Multi-host behavior is single-process-simulated: init_distributed's env
@@ -11,10 +10,10 @@ import jax
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import Ring
-from agilex_ntt_tpu import golden as G
-from agilex_ntt_tpu.parallel import multihost
-from agilex_ntt_tpu.parallel.mesh import ShardedRing, make_mesh
+from agilex_ntt import Ring
+from agilex_ntt import golden as G
+from agilex_ntt.parallel import multihost
+from agilex_ntt.parallel.mesh import ShardedRing, make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -28,8 +27,7 @@ def devices8():
 def no_cluster_env(monkeypatch):
     for v in (
         "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS", "SLURM_JOB_NUM_NODES",
-        "OMPI_COMM_WORLD_SIZE", "TPU_WORKER_HOSTNAMES",
+        "SLURM_JOB_NUM_NODES", "OMPI_COMM_WORLD_SIZE",
     ):
         monkeypatch.delenv(v, raising=False)
 
@@ -85,17 +83,13 @@ def test_init_cluster_env_triggers(no_cluster_env, captured_init,
     assert len(captured_init) == 1
 
 
-def test_init_single_host_tpu_hostname_is_not_a_cluster(
+def test_init_unrelated_env_is_not_a_cluster(
     no_cluster_env, captured_init, monkeypatch
 ):
-    # single-host TPU VMs set TPU_WORKER_HOSTNAMES=localhost; only a
-    # multi-entry list is evidence of a pod slice
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
+    # only a launcher's variables are evidence of several processes
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1,2,3")
     multihost.init_distributed()
     assert captured_init == []
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-0,host-1")
-    multihost.init_distributed()
-    assert len(captured_init) == 1
 
 
 # -- pod_mesh ----------------------------------------------------------------
@@ -135,7 +129,7 @@ def test_process_local_batch_multi_process(monkeypatch):
 def test_dp_uneven_batch_bitexact(devices8, rng, batch):
     # the reference distributes numFrames % NUM_CUs leftover frames
     # (ntt.cpp:526-536); here the batch pads to the dp axis and slices back
-    ring = Ring(256, backend="xla")
+    ring = Ring(256)
     mesh = make_mesh(dp=8)
     sr = ShardedRing(ring, mesh, dp_axis="dp")
     x = rng.integers(0, ring.q, size=(batch, 256), dtype=np.uint32)
@@ -147,19 +141,19 @@ def test_dp_uneven_batch_bitexact(devices8, rng, batch):
 
 
 def test_dp_uneven_batch_polymul(devices8, rng):
-    ring = Ring(256, backend="xla")
+    ring = Ring(256)
     mesh = make_mesh(dp=8)
     sr = ShardedRing(ring, mesh, dp_axis="dp")
     a = rng.integers(0, ring.q, size=(3, 256), dtype=np.uint32)
     b = rng.integers(0, ring.q, size=(3, 256), dtype=np.uint32)
     got = np.asarray(sr.polymul(a, b))
-    want = np.asarray(Ring(256, backend="xla").polymul(a, b))
+    want = np.asarray(Ring(256).polymul(a, b))
     assert (got == want).all()
 
 
 def test_dp_sp_uneven_batch_bitexact(devices8, rng):
     # both axes at once: batch 3 over dp=2, coefficients over sp=4
-    ring = Ring(1024, backend="xla")
+    ring = Ring(1024)
     mesh = make_mesh(dp=2, sp=4)
     sr = ShardedRing(ring, mesh, dp_axis="dp", sp_axis="sp")
     x = rng.integers(0, ring.q, size=(3, 1024), dtype=np.uint32)

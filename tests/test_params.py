@@ -1,10 +1,10 @@
-"""Tests for prime/root/twiddle-table generation (agilex_ntt_tpu.params)."""
+"""Tests for prime/root/twiddle-table generation (agilex_ntt.params)."""
 
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import params as P
-from agilex_ntt_tpu.config import NTTConfig
+from agilex_ntt import params as P
+from agilex_ntt.config import NTTConfig
 
 from conftest import params_for
 

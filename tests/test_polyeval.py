@@ -15,8 +15,8 @@ from fractions import Fraction
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu.schemes import CKKSContext
-from agilex_ntt_tpu.schemes.bgv import BGVContext
+from agilex_ntt.schemes import CKKSContext
+from agilex_ntt.schemes.bgv import BGVContext
 
 N = 256
 SLOTS = N // 2

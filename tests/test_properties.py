@@ -9,15 +9,15 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from agilex_ntt_tpu import Ring
-from agilex_ntt_tpu.params import find_primes
+from agilex_ntt import Ring
+from agilex_ntt.params import find_primes
 
 _SIZES = [16, 64, 256, 512]
 
 
 def _ring(n, prime_idx=0):
     q = find_primes(n, prime_idx + 1)[prime_idx]
-    return Ring(n, q, backend="xla")
+    return Ring(n, q)
 
 
 @st.composite
@@ -124,9 +124,9 @@ def test_check_flags_out_of_range():
 
 # -- RNS layer properties (round 3: basechange / gadget / keyswitch) --------
 
-from agilex_ntt_tpu import RNSRing  # noqa: E402
-from agilex_ntt_tpu.ops import gadget as _gadget  # noqa: E402
-from agilex_ntt_tpu.utils.crt import crt_compose  # noqa: E402
+from agilex_ntt import RNSRing  # noqa: E402
+from agilex_ntt.ops import gadget as _gadget  # noqa: E402
+from agilex_ntt.utils.crt import crt_compose  # noqa: E402
 
 
 @st.composite

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import CyclicRing, Ring
+from agilex_ntt import CyclicRing, Ring
 
 
 @pytest.fixture(scope="module")
 def ring():
-    return Ring(256, backend="xla")
+    return Ring(256)
 
 
 def _naive_auto(a, k, q):
@@ -71,13 +71,13 @@ def test_automorphism_respects_polymul(ring, rng):
 
 
 def test_cyclic_roundtrip(rng):
-    r = CyclicRing(512, backend="xla")
+    r = CyclicRing(512)
     x = rng.integers(0, r.q, size=(4, 512), dtype=np.uint32)
     assert (np.asarray(r.intt(r.ntt(x))) == x).all()
 
 
 def test_cyclic_polymul_matches_naive(rng):
-    r = CyclicRing(128, backend="xla")
+    r = CyclicRing(128)
     a = rng.integers(0, r.q, size=(128,), dtype=np.uint32)
     b = np.zeros(128, dtype=np.uint32)
     b[0], b[1], b[5] = 2, 7, 11
@@ -92,8 +92,8 @@ def test_cyclic_polymul_matches_naive(rng):
 def test_cyclic_wraparound_differs_from_negacyclic(rng):
     """x^(n-1) * x = x^n: +1 cyclically, -1 negacyclically."""
     n = 128
-    cr = CyclicRing(n, backend="xla")
-    nr = Ring(n, cr.q, backend="xla")
+    cr = CyclicRing(n)
+    nr = Ring(n, cr.q)
     a = np.zeros(n, dtype=np.uint32); a[n - 1] = 1
     b = np.zeros(n, dtype=np.uint32); b[1] = 1
     cyc = np.asarray(cr.polymul(a, b))
@@ -104,7 +104,7 @@ def test_cyclic_wraparound_differs_from_negacyclic(rng):
 def test_cyclic_large_n_fourstep(rng):
     """Beyond the single-pass wall the cyclic ring uses the all-cyclic
     four-step plan; roundtrip + the pure-rotation convolution property."""
-    r = CyclicRing(1 << 16, backend="xla")
+    r = CyclicRing(1 << 16)
     assert r.method == "fourstep"
     x = rng.integers(0, r.q, size=(2, r.n), dtype=np.uint32)
     assert (np.asarray(r.intt(r.ntt(x))) == x).all()
@@ -118,8 +118,8 @@ def test_cyclic_large_n_fourstep(rng):
 
 def test_cyclic_fourstep_matches_radix2(rng):
     n = 4096
-    r2 = CyclicRing(n, backend="xla")
-    r4 = CyclicRing(n, r2.q, omega=r2.omega, method="fourstep", backend="xla")
+    r2 = CyclicRing(n)
+    r4 = CyclicRing(n, r2.q, omega=r2.omega, method="fourstep")
     x = rng.integers(0, r2.q, size=(3, n), dtype=np.uint32)
     assert (np.asarray(r2.ntt(x)) == np.asarray(r4.ntt(x))).all()
     y = r2.ntt(x)
@@ -164,9 +164,9 @@ def test_rotate_matches_polymul_by_monomial(ring, rng):
 
 
 def test_rns_polydot_and_rotate(rng):
-    from agilex_ntt_tpu import RNSRing
+    from agilex_ntt import RNSRing
 
-    rns = RNSRing(256, num_primes=2, backend="xla")
+    rns = RNSRing(256, num_primes=2)
     k = 2
     a = np.stack([rng.integers(0, q, size=(k, 256), dtype=np.uint32) for q in rns.qs])
     b = np.stack([rng.integers(0, q, size=(k, 256), dtype=np.uint32) for q in rns.qs])
@@ -193,16 +193,12 @@ def test_polymul_broadcast_shapes(ring, rng):
 
 
 def test_polymul_broadcast_shapes_fused_interpret(rng):
-    """Same regression through the fused Pallas kernel (interpret mode)."""
-    r = Ring(256, backend="pallas", interpret=True)
-    # force the pallas branch even though default backend on CPU is xla
-    assert r.backend == "pallas" or r.backend == "xla"
-    if r.backend != "pallas":
-        r.backend = "pallas"
+    """Same regression through the kernel (interpreter)."""
+    r = Ring(256, interpret=True)
     a = rng.integers(0, r.q, size=(4, 256), dtype=np.uint32)
     b = rng.integers(0, r.q, size=(256,), dtype=np.uint32)
     got = np.asarray(r.polymul(a, b))
-    rx = Ring(256, r.q, backend="xla")
+    rx = Ring(256, r.q)
     want = np.asarray(rx.polymul(a, b))
     assert (got == want).all()
 
@@ -211,14 +207,14 @@ def test_rns_fused_polymul_broadcasts_lead_dims(rng):
     """(L, k, n) x (L, 1, n) broadcasts through the fused multi-prime
     kernel path exactly like the stacked per-ring path (regression, round
     4: scheme keygen multiplies the (K, dnum, n) noise block against the
-    (K, 1, n) secret — on TPU the uniform-Pallas branch reshaped without
-    broadcasting and keygen crashed for every scheme)."""
-    from agilex_ntt_tpu import RNSRing
+    (K, 1, n) secret — a channel-batched branch that reshaped without
+    broadcasting once crashed keygen for every scheme)."""
+    from agilex_ntt import RNSRing
 
     n = 256
-    rp = RNSRing(n, num_primes=3, backend="pallas", interpret=True)
-    rx = RNSRing(n, num_primes=3, backend="xla")
-    assert rp._uniform_pallas() and not rx._uniform_pallas()
+    rp = RNSRing(n, num_primes=3, interpret=True)
+    rx = RNSRing(n, num_primes=3)
+    assert rp._radix2() and rx._radix2()
     a = np.stack([
         rng.integers(0, r.q, size=(4, n), dtype=np.uint32)
         for r in rp.rings
@@ -238,12 +234,12 @@ def test_rns_fused_polymul_broadcasts_missing_lead_dims(rng):
     the fused kernel path like the stacked path (regression, round 4:
     trailing-aligned broadcast_to collided the channel axis with the batch
     axis, so CKKS encrypt of a batched plaintext against the unbatched
-    public key crashed on TPU; report_out/hw_r3/suite.err)."""
-    from agilex_ntt_tpu import RNSRing
+    public key crashed)."""
+    from agilex_ntt import RNSRing
 
     n = 256
-    rp = RNSRing(n, num_primes=3, backend="pallas", interpret=True)
-    rx = RNSRing(n, num_primes=3, backend="xla")
+    rp = RNSRing(n, num_primes=3, interpret=True)
+    rx = RNSRing(n, num_primes=3)
     pk = np.stack([
         rng.integers(0, r.q, size=(n,), dtype=np.uint32) for r in rp.rings
     ])
@@ -266,13 +262,13 @@ def test_cyclic_rejects_oversized_and_composite_q():
 
 
 def test_cyclic_polymul_fused_interpret(rng):
-    """Round-2: CyclicRing.polymul as one kernel (cyclic tables through the
-    negacyclic polymul_fused machinery), interpret mode vs XLA composition."""
-    from agilex_ntt_tpu import CyclicRing
+    """CyclicRing.polymul through the kernel with cyclic tables
+    (interpreter) vs the plain composition."""
+    from agilex_ntt import CyclicRing
 
     n = 256
-    rp = CyclicRing(n, backend="pallas", interpret=True)
-    rx = CyclicRing(n, backend="xla")
+    rp = CyclicRing(n, interpret=True)
+    rx = CyclicRing(n)
     a = rng.integers(0, rp.q, size=(5, n), dtype=np.uint32)
     b = rng.integers(0, rp.q, size=(5, n), dtype=np.uint32)
     got = np.asarray(rp.polymul(a, b))

@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from agilex_ntt_tpu import Ring
-from agilex_ntt_tpu import golden as G
-from agilex_ntt_tpu.parallel import ShardedRing, make_mesh
+from agilex_ntt import Ring
+from agilex_ntt import golden as G
+from agilex_ntt.parallel import ShardedRing, make_mesh
 
 
 pytestmark = pytest.mark.skipif(
@@ -28,7 +28,7 @@ pytestmark = pytest.mark.skipif(
     seed=st.integers(0, 2**31 - 1),
 )
 def test_sharded_ntt_always_matches_golden(n, sp, with_dp, method, seed):
-    ring = Ring(n, backend="xla")
+    ring = Ring(n)
     dp = 8 // sp if with_dp else None
     mesh = make_mesh(**({"dp": dp, "sp": sp} if dp else {"sp": sp}))
     sr = ShardedRing(
@@ -49,14 +49,14 @@ def test_sharded_rns_dp_fused_kernel(rng):
     multi-prime kernel (interpret mode exercises it on the CPU mesh)."""
     import jax.numpy as jnp
 
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     n, L = 256, 3
-    rns_i = RNSRing(n, num_primes=L, backend="pallas", interpret=True)
-    rns_oracle = RNSRing(n, num_primes=L, backend="xla")
+    rns_i = RNSRing(n, num_primes=L, interpret=True)
+    rns_oracle = RNSRing(n, num_primes=L)
     mesh = make_mesh(dp=8)
     srns = ShardedRNSRing(rns_i, mesh, dp_axis="dp")
     assert srns._use_dp_fused()
@@ -80,14 +80,14 @@ def test_sharded_rns_dp_fused_uneven_batch(rng):
     remainder-frame batches like the stacked fallback."""
     import jax.numpy as jnp
 
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     n, L = 256, 2
-    rns_i = RNSRing(n, num_primes=L, backend="pallas", interpret=True)
-    oracle = RNSRing(n, num_primes=L, backend="xla")
+    rns_i = RNSRing(n, num_primes=L, interpret=True)
+    oracle = RNSRing(n, num_primes=L)
     srns = ShardedRNSRing(rns_i, make_mesh(dp=8), dp_axis="dp")
     assert srns._use_dp_fused()
     x = np.stack([
@@ -106,14 +106,14 @@ def test_sharded_rns_channel_parallel(rng, axes):
     the single-host RNSRing, including a remainder-frame batch."""
     import jax.numpy as jnp
 
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     n, L = 256, 4
-    rns_i = RNSRing(n, num_primes=L, backend="pallas", interpret=True)
-    oracle = RNSRing(n, num_primes=L, backend="xla")
+    rns_i = RNSRing(n, num_primes=L, interpret=True)
+    oracle = RNSRing(n, num_primes=L)
     mesh = make_mesh(**axes)
     srns = ShardedRNSRing(rns_i, mesh, dp_axis="dp", ch_axis="ch")
     x = np.stack([
@@ -141,14 +141,14 @@ def test_sharded_rns_polydot(rng, axes, use_ch):
     tables sharded together), remainder batch included."""
     import jax.numpy as jnp
 
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     n, L, k = 256, 4, 2
-    rns_i = RNSRing(n, num_primes=L, backend="pallas", interpret=True)
-    oracle = RNSRing(n, num_primes=L, backend="xla")
+    rns_i = RNSRing(n, num_primes=L, interpret=True)
+    oracle = RNSRing(n, num_primes=L)
     mesh = make_mesh(**axes)
     srns = ShardedRNSRing(
         rns_i, mesh, dp_axis="dp", ch_axis="ch" if use_ch else None
@@ -174,15 +174,15 @@ def test_sharded_rns_ch_x_sp(rng):
     RNSRing, remainder batch included."""
     import jax.numpy as jnp
 
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     n, L = 16384, 2  # (n1, n2) = (128, 128): smallest ch x sp-eligible size
-    rns_i = RNSRing(n, num_primes=L, backend="pallas", interpret=True,
+    rns_i = RNSRing(n, num_primes=L, interpret=True,
                     method="fourstep")
-    oracle = RNSRing(n, num_primes=L, backend="xla")
+    oracle = RNSRing(n, num_primes=L)
     mesh = make_mesh(ch=2, sp=2, dp=2)
     srns = ShardedRNSRing(rns_i, mesh, dp_axis="dp", sp_axis="sp",
                           ch_axis="ch")
@@ -211,12 +211,12 @@ def test_sharded_rns_ch_x_sp(rng):
 
 def test_sharded_rns_ch_x_sp_rejects_radix2(rng):
     """radix-2 rings still reject the combination, with a clear message."""
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
-    rns = RNSRing(256, num_primes=2, backend="pallas", interpret=True)
+    rns = RNSRing(256, num_primes=2, interpret=True)
     with pytest.raises(ValueError, match="four-step"):
         ShardedRNSRing(rns, make_mesh(ch=2, sp=2, dp=2), dp_axis="dp",
                        sp_axis="sp", ch_axis="ch")
@@ -226,13 +226,13 @@ def test_sharded_rns_rotate_automorphism(rng):
     """Round 3: per-channel gather ops on the sharded residues."""
     import jax.numpy as jnp
 
-    from agilex_ntt_tpu import RNSRing
-    from agilex_ntt_tpu.parallel import ShardedRNSRing, make_mesh
+    from agilex_ntt import RNSRing
+    from agilex_ntt.parallel import ShardedRNSRing, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     n, L = 256, 2
-    rns = RNSRing(n, num_primes=L, backend="xla")
+    rns = RNSRing(n, num_primes=L)
     srns = ShardedRNSRing(rns, make_mesh(dp=8), dp_axis="dp")
     x = np.stack([
         rng.integers(0, r.q, size=(8, n), dtype=np.uint32)

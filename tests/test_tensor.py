@@ -9,7 +9,7 @@ configuration the scheme layer dispatches to.
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import Ring, RNSRing
+from agilex_ntt import Ring, RNSRing
 
 
 def composed(r, a0, a1, b0, b1):

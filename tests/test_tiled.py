@@ -1,15 +1,13 @@
 """Tiled-domain API (round 3, VERDICT round-2 item 3).
 
-Chained four-step pipelines stay on the rank-3 (B, n1, n2) layout and skip
-the flat-boundary HBM relayout; everything here pins bit-exact equivalence
-with the flat API (the perf claim is measured on hardware: BASELINE.md
-"tiled-domain API").
+Chained four-step pipelines may stay on the rank-3 (B, n1, n2) layout;
+everything here pins bit-exact equivalence with the flat API.
 """
 
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import Ring
+from agilex_ntt import Ring
 
 
 @pytest.fixture(
@@ -17,14 +15,13 @@ from agilex_ntt_tpu import Ring
     params=["xla", "pallas-full-fuse", "pallas-composed"],
 )
 def tring(request):
-    # 16384 full-fuses ((n1, n2) = (128, 128), 64 KiB matrix); 2^18 with
-    # backend pallas takes the two-kernel (fused-col) path
+    # the plain path, and the kernel (interpreter) at a square and at a
+    # larger split
     if request.param == "xla":
-        return Ring(16384, method="fourstep", backend="xla")
+        return Ring(16384, method="fourstep")
     if request.param == "pallas-full-fuse":
-        return Ring(16384, method="fourstep", backend="pallas",
-                    interpret=True)
-    return Ring(1 << 18, method="fourstep", backend="pallas", interpret=True)
+        return Ring(16384, method="fourstep", interpret=True)
+    return Ring(1 << 18, method="fourstep", interpret=True)
 
 
 def _batch(rng, ring, shape):
@@ -97,7 +94,7 @@ def test_tiled_batch_shapes(tring, rng):
 
 
 def test_tiled_requires_fourstep():
-    r = Ring(256, backend="xla")
+    r = Ring(256)
     with pytest.raises(ValueError, match="four-step"):
         r.to_tiled(np.zeros((1, 256), dtype=np.uint32))
     with pytest.raises(ValueError, match="four-step"):

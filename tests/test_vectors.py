@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import Ring, golden as G, native
-from agilex_ntt_tpu.params import make_params
+from agilex_ntt import Ring, golden as G, native
+from agilex_ntt.params import make_params
 
 VEC = os.path.join(os.path.dirname(__file__), "vectors", "ntt_kat.npz")
 # full reference size menu (include/kernel/ntt.h:11-23) plus n=4096
@@ -48,7 +48,8 @@ def test_golden_u32_matches_kat(kat, n):
 
 @pytest.mark.parametrize("n", SIZES_ALL)
 def test_ring_matches_kat(kat, n):
-    """Full API path (XLA on CPU, Pallas kernels on TPU) against the KAT."""
+    """Full API path (plain XLA on the CPU, the kernel on a GPU) against the
+    KAT."""
     q = int(kat[f"n{n}_q"])
     ring = Ring(n, q, psi=int(kat[f"n{n}_psi"]))
     x = kat[f"n{n}_input"].astype(np.uint32)
@@ -70,14 +71,12 @@ def test_ring_polymul_matches_kat(kat, n):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_pallas_interpret_matches_kat(kat, n):
-    from agilex_ntt_tpu.ops import ntt_kernel as K
+    from agilex_ntt.ops import ntt_kernel as K
 
-    if n < K.MIN_KERNEL_N:
-        pytest.skip("below lane-kernel minimum; covered by ring test")
     q = int(kat[f"n{n}_q"])
     pp = make_params(n, q, int(kat[f"n{n}_psi"]))
     x = kat[f"n{n}_input"].astype(np.uint32)[None, :].repeat(8, axis=0)
-    got = np.asarray(K.fwd_ntt(x, pp, block_rows=8, interpret=True))
+    got = np.asarray(K.fwd_ntt(x, pp, interpret=True))
     assert (got[0].astype(np.uint64) == kat[f"n{n}_ntt"]).all()
 
 
@@ -91,9 +90,9 @@ def test_native_matches_kat(kat, n):
 
 
 def test_small_n_packed_pallas_matches_kat(kat):
-    """n=32 through the lane-packed Pallas kernel path (round 2) — the
-    reference's smallest config runs the kernel, not the XLA fallback."""
-    from agilex_ntt_tpu.ops import ntt_kernel as K
+    """n=32, the reference's smallest config, through the kernel
+    (interpreter), with a batch that fills several programs."""
+    from agilex_ntt.ops import ntt_kernel as K
 
     n = 32
     q = int(kat[f"n{n}_q"])
@@ -121,7 +120,7 @@ def test_ring_large_matches_kat(kat, n):
 def test_widering_matches_kat(kat, bits):
     """WideRing (u64 word width, VERDICT round-2 item 5) against C-core
     generated, big-int-spot-certified vectors at wide primes."""
-    from agilex_ntt_tpu import WideRing
+    from agilex_ntt import WideRing
 
     n = 1024
     q = int(kat[f"w{bits}_q"])
@@ -139,7 +138,7 @@ def test_cyclic_ring_matches_kat(kat, n):
     """CyclicRing against the C-core-generated, big-int-certified cyclic
     vectors (round 2: the cyclic surface was previously pinned only by
     in-process golden models)."""
-    from agilex_ntt_tpu import CyclicRing
+    from agilex_ntt import CyclicRing
 
     q = int(kat[f"cyc{n}_q"])
     ring = CyclicRing(n, q, omega=int(kat[f"cyc{n}_omega"]))
@@ -181,7 +180,7 @@ def test_keyswitch_matches_kat(kat):
     certified vector at the production shape n=4096, L=4+2, dnum=2
     (round 4, VERDICT round-3 item 8 — the FHE core primitive gets the
     same certified-battery status as the transforms)."""
-    from agilex_ntt_tpu import RNSRing
+    from agilex_ntt import RNSRing
 
     ext_qs = tuple(int(q) for q in kat["ks_qs"])
     L, dnum = int(kat["ks_L"]), int(kat["ks_dnum"])

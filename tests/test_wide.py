@@ -10,9 +10,9 @@ the pure big-int convolution.
 import numpy as np
 import pytest
 
-from agilex_ntt_tpu import WideRing, find_primes, golden as G
-from agilex_ntt_tpu.ops import wide
-from agilex_ntt_tpu.params import make_params
+from agilex_ntt import WideRing, find_primes, golden as G
+from agilex_ntt.ops import wide
+from agilex_ntt.params import make_params
 
 # a mid-width and a Harvey-bound-adjacent prime for n=256
 N = 256
@@ -152,7 +152,7 @@ def test_rejects_oversize_modulus():
 
 def test_native_core_agrees_at_wide_q():
     """The C core (u128 arithmetic) and WideRing agree at a 62-bit prime."""
-    from agilex_ntt_tpu import native
+    from agilex_ntt import native
 
     if not native.available():
         pytest.skip("native core not built")

@@ -17,9 +17,9 @@ sys.path.insert(0, ".")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from agilex_ntt_tpu.schemes import CKKSContext  # noqa: E402
-from agilex_ntt_tpu.schemes.ckks import Ciphertext  # noqa: E402
-from agilex_ntt_tpu.utils.profiling import device_time  # noqa: E402
+from agilex_ntt.schemes import CKKSContext  # noqa: E402
+from agilex_ntt.schemes.ckks import Ciphertext  # noqa: E402
+from agilex_ntt.utils.profiling import device_time  # noqa: E402
 
 N = 4096
 L = 5

@@ -20,9 +20,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from agilex_ntt_tpu import golden as G
-from agilex_ntt_tpu import native
-from agilex_ntt_tpu.params import (
+from agilex_ntt import golden as G
+from agilex_ntt import native
+from agilex_ntt.params import (
     bit_reverse,
     find_primes,
     make_params,
@@ -53,7 +53,7 @@ def main():
             oracle = G.naive_negacyclic_ntt([int(v) for v in x], pp)
             assert [int(v) for v in y] == oracle, f"oracle mismatch at n={n}"
         else:
-            from agilex_ntt_tpu.params import bit_reverse
+            from agilex_ntt.params import bit_reverse
             idxs = rng.choice(n, size=ORACLE_SPOT, replace=False)
             for k in idxs:
                 e = 2 * bit_reverse(int(k), pp.log_n) + 1
@@ -222,7 +222,7 @@ def gen_keyswitch(rng, blobs, n=4096, L=4, spec=2, dnum=2):
         coefficients per channel re-derived by exact O(n) big-int dot;
       * ModDown = two exact centered divides on the big-int CRT composite.
     """
-    from agilex_ntt_tpu.utils.crt import crt_compose
+    from agilex_ntt.utils.crt import crt_compose
 
     qs_all = find_primes(n, L + spec)
     qs, ext_qs = qs_all[:L], qs_all

@@ -15,8 +15,8 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 
-from agilex_ntt_tpu import Ring  # noqa: E402
-from agilex_ntt_tpu.utils.profiling import (  # noqa: E402
+from agilex_ntt import Ring  # noqa: E402
+from agilex_ntt.utils.profiling import (  # noqa: E402
     device_time,
     device_time_profiled,
 )
@@ -25,27 +25,26 @@ TOTAL_ELEMS = 1 << 25  # ~128 MiB of uint32 per point
 
 
 def main():
-    on_tpu = jax.devices()[0].platform == "tpu"
+    on_gpu = jax.default_backend() == "gpu"
     sizes = [32, 1024, 4096, 8192, 16384, 32768, 1 << 16, 1 << 18, 1 << 20]
-    if not on_tpu:
+    if not on_gpu:
         sizes = [s for s in sizes if s <= 4096]
     key = jax.random.PRNGKey(0)
     for n in sizes:
-        b = max(8, (TOTAL_ELEMS if on_tpu else 1 << 16) // n)
+        b = max(8, (TOTAL_ELEMS if on_gpu else 1 << 16) // n)
         r = Ring(n)
         x = jax.random.randint(key, (b, n), 0, r.q, dtype=jnp.uint32)
-        # true device time from a profiler trace where available (TPU);
-        # wall-delta estimator otherwise (see BASELINE.md round-2 accounting)
+        # device time from a profiler trace where available (GPU); the
+        # wall-clock delta estimator otherwise
         t = device_time_profiled(lambda v: r.ntt(v), x, iters=6)
         if t is None:
             t = min(
-                device_time(lambda v: r.ntt(v), x, iters=10 if on_tpu else 2)
+                device_time(lambda v: r.ntt(v), x, iters=10 if on_gpu else 2)
                 for _ in range(3)
             )
         logn = n.bit_length() - 1
         fpga = 400e6 / (logn * n / 16) if n <= 32768 else None
         # flush per row: a timeout SIGTERM must not swallow completed rows
-        # (round-3's sweep.out lost everything past n=8192 to buffering)
         print(json.dumps({
             "metric": f"fwd NTT/s (n={n}, batch={b}, {r.method})",
             "value": round(b / t, 1),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Profiled-vs-delta timing cross-check (the round-2 <1% invariant).
+"""Profiled-vs-delta timing cross-check on a GPU.
 
 Runs ``utils.profiling.device_time_profiled`` (trace ground truth) and
 ``utils.profiling.device_time`` (wall-clock delta estimator) on:
@@ -7,16 +7,13 @@ Runs ``utils.profiling.device_time_profiled`` (trace ground truth) and
   1. a SINGLE-executable path — radix-2 fwd NTT, n=4096, batch=8192 —
      where the round-3 nested-event bug double-counted (module event +
      same-span op event), and
-  2. a MULTI-executable path — Ring.fwd at n=2^20 (two Pallas kernels +
-     HBM relayout copies) — where the round-2 dominant-name-only
-     accounting undercounted.
+  2. a MULTI-executable path — Ring.fwd at n=2^20 (two kernel passes,
+     transposes and the twiddle scale) — where a dominant-name-only
+     accounting would undercount.
 
-That pair is exactly what each historical form got wrong one way or the
-other (VERDICT.md round 3 task 1).  Prints one JSON line per case with the
-profiled/delta ratio; PASS means within 5%.
-
-Reference analog: none — /root/reference has no runtime timing at all; this
-is the measurement contract for every BASELINE.md number.
+Prints one JSON line per case with the profiled/delta ratio; PASS means
+within 5%.  Reference analog: none — /root/reference has no runtime timing
+at all.
 """
 
 import json
@@ -28,9 +25,9 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from agilex_ntt_tpu.api import Ring  # noqa: E402
-from agilex_ntt_tpu.params import find_primes  # noqa: E402
-from agilex_ntt_tpu.utils.profiling import (  # noqa: E402
+from agilex_ntt.api import Ring  # noqa: E402
+from agilex_ntt.params import find_primes  # noqa: E402
+from agilex_ntt.utils.profiling import (  # noqa: E402
     device_time,
     device_time_profiled,
 )
@@ -66,8 +63,8 @@ def case(name, n, batch, iters):
 
 
 def main():
-    if jax.devices()[0].platform != "tpu":
-        print(json.dumps({"error": "not on TPU; cross-check needs the chip"}))
+    if jax.devices()[0].platform != "gpu":
+        print(json.dumps({"error": "not on a GPU; the cross-check needs one"}))
         return 1
     ok1 = case("radix2 fwd (single executable)", 4096, 8192, iters=10)
     ok2 = case("fourstep fwd (multi executable)", 1 << 20, 128, iters=8)
